@@ -7,9 +7,9 @@ Python version is complete (``linear_least_sqare.py:5-22``): QR factor, apply
 Q^T (the reference uses ``pinv(Q)`` — mathematically Q^T for orthonormal Q),
 then back-substitution (GVL Alg 5.3.2, cited at ``solver.cu:43-45``).
 
-TPU-first: the QR driver threads b through the panel updates so Q is never
+On device: the QR driver threads b through the panel updates so Q is never
 materialized (``block_qr_qtb``); back-substitution is a blocked,
-static-shaped triangular solve that keeps the heavy lifting in (r x r) MXU
+static-shaped triangular solve that keeps the heavy lifting in (r x r)
 GEMMs instead of the reference's scalar Python loop.
 """
 
@@ -38,7 +38,7 @@ def back_substitution(
     fusing the double-rev into the same XLA:CPU program as the sweep hits
     an XLA crash ("Invalid binary instruction opcode map",
     hlo_instruction.cc:1585 — jax 0.9.0 CPU backend); as two separate
-    programs both compile fine on CPU and TPU alike."""
+    programs both compile fine on CPU and GPU alike."""
     from mixedprecisionblockqr_tpu.ops.metrics import _replicate
 
     R = _replicate(jnp.asarray(R))
@@ -198,7 +198,7 @@ def lstsq(
     method='tsqr': TSQR path for very tall A (m >> n).
     method='pivoted': rank-revealing path (``lstsq_pivoted``) directly.
     panel_method: forwarded to the blocked driver — 'bgs1'/'bgs'/'polar'
-        select the fused-kernel throughput tiers (solves keep the
+        select the Newton-Schulz throughput tiers (solves keep the
         'householder' robust default: x accuracy is kappa-limited and
         solver workloads skew ill-conditioned).
     quality: the speed/quality ladder knob, forwarded to the blocked
@@ -212,13 +212,11 @@ def lstsq(
         ``rcond * max|diag|`` (default eps_f32 * max(m, n)) the plain-QR
         solve is ill-posed (1/R_ii blows up): the solver transparently
         re-routes through the column-pivoted path and returns the MIN-NORM
-        solution.  Pass ``rcond=0`` to disable the check.  The reroute's
-        price (one v5e chip, BENCH_NOTES round-8): the RQRCP tier that
-        ``pivoted_qr_qtb(method='auto')`` takes at n >= 512 costs
-        0.74 / 1.8 / 6.2 / 34.5 ms at n = 512 / 1024 / 2048 / 4096 (the
-        exact QP3 tier: 2.7 / 7.0 / 32.5 ms, used on small/ineligible
-        shapes and as the fallback on exactly-singular inputs) — paid
-        only on rank-deficient inputs.
+        solution.  Pass ``rcond=0`` to disable the check.  The reroute
+        takes the RQRCP tier (``pivoted_qr_qtb(method='auto')``) at
+        n >= 512 and the exact QP3 tier on small/ineligible shapes and as
+        the fallback on exactly-singular inputs — paid only on
+        rank-deficient inputs.
     """
     A = jnp.asarray(A, dtype=jnp.float32)
     b = jnp.asarray(b, dtype=jnp.float32)

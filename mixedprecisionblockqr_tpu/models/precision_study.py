@@ -9,7 +9,7 @@ Key reproduction + divergence: the reference's fp16 runs overflow to NaN at
 cond >= 1e6 (``error.md:15-16``) because fp16 has a 5-bit exponent.  bf16
 keeps fp32's 8-bit exponent, so the same matrices stay finite — the study
 runs BOTH (fp16 on CPU via NumPy-backed emulation, bf16 on device) to
-document that the TPU-native dtype choice removes the reference's failure
+document that the bf16 dtype choice removes the reference's failure
 mode while keeping the same mantissa-driven error scale.
 """
 
@@ -143,7 +143,7 @@ def to_markdown(study: Dict[str, List[dict]]) -> Dict[str, str]:
         "fp16 reproduces the reference's NaN overflow at high condition\n"
         "numbers (performance_test_result/error.md:15-16); bf16 (same\n"
         "mantissa class, fp32 exponent) stays finite — the documented\n"
-        "divergence of the TPU-native dtype choice.\n\n"
+        "divergence of the bf16 dtype choice.\n\n"
         + table("error", lambda v: "NaN" if not np.isfinite(v) else f"{v:.2e}")
     )
     dur_md = "# Duration (seconds, includes compile on first config)\n\n" + table(

@@ -1,12 +1,12 @@
 """Differentiable blocked QR — reverse-mode gradients for the framework's
 factorization drivers.
 
-The reference is a forward-only CUDA kernel suite; on TPU the framework
+The reference is a forward-only CUDA kernel suite; here the framework
 lives inside JAX programs, where the factorization is routinely a step of a
 larger differentiated computation (Gauss-Newton inner solves, bilevel
 optimization over Jacobians, learned preconditioners).  This module makes
 ``qr`` a first-class citizen of ``jax.grad``: the primal runs ANY of the
-blocked drivers (auto dispatch, Pallas group kernels, mixed policies — none
+blocked drivers (auto dispatch, the chain kernel, mixed policies — none
 of which JAX could differentiate through), and the backward pass uses the
 closed-form thin-QR adjoint, so the gradient costs two triangular solves
 and a handful of GEMMs regardless of which driver produced Q, R.
@@ -67,7 +67,7 @@ def make_differentiable_qr(
     differentiability domain.  The backward runs at fp32 HIGHEST regardless
     of the policy: gradients drive OPTIMIZATION, where bf16 projection noise
     compounds across steps (same reasoning as the reorth tiers' precision
-    rule, BENCH_NOTES round-4).
+    rule).
     """
     from mixedprecisionblockqr_tpu.ops.blockqr import block_qr
 

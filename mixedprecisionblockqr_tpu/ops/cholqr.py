@@ -1,11 +1,11 @@
-"""CholeskyQR panel factorization — the all-MXU fast path.
+"""CholeskyQR panel factorization — the all-GEMM fast path.
 
 The reference leaves its panel factorization sequential on the host
 (``h_householder_qr``, ``Cuda/qr.cu:198``), so its GPU pipeline stalls every
-panel.  On TPU the panel can instead be factored with CholeskyQR2
+panel.  On the device the panel can instead be factored with CholeskyQR2
 [Yamamoto, Nakatsukasa, Yanagisawa, Fukaya 2015]:
 
-    G = P^T P            (one m x r x r GEMM — MXU)
+    G = P^T P            (one m x r x r GEMM)
     R = chol(G)^T        (r x r, the only non-GEMM step)
     Q = P R^-1           (triangular solve as GEMM with R^-1)
     ... repeated once more (the "2" in CholeskyQR2) to restore
@@ -38,16 +38,9 @@ _HI = jax.lax.Precision.HIGHEST
 def _chol_and_inv(G: jax.Array, shift=None):
     """(R, R^-1) with R^T R = G (+ shift * I); shift may be traced.
 
-    Round-2 note: the fused Pallas chol+inverse kernel
-    (``ops/pallas/chol.py``) was benchmarked IN CONTEXT on-chip and lost
-    badly (2048^2 mixed QR: 1.70 ms vs 0.97 ms same session — the kernel's
-    sequential masked column loop is ~60-80us/call, worse than XLA's
-    ~27us chol+trisolve), so the former ``MPBQR_PALLAS_CHOL`` hook was
-    removed (it also probed the backend at trace time — a staleness bug,
-    round-1 VERDICT weak item 5).  The kernel remains available directly
-    as an L1 capability (``ops.pallas.chol.chol_rinv``).  The real fix for
-    the chol latency chain is the polar panel path (``panel_method='polar'``
-    in ops/blockqr.py), which needs no per-panel triangular ops at all.
+    The fix for the chol latency chain is the Newton-Schulz panel path
+    (``panel_method='polar'``/BGS in ops/blockqr.py), which needs no
+    per-panel triangular ops at all.
     """
     r = G.shape[0]
     if shift is not None:
@@ -99,7 +92,7 @@ def cholesky_qr2(
 
 def newton_inv(S: jax.Array, iters: int = 6, check: bool = False) -> jax.Array:
     """Inverse of a well-conditioned matrix by Newton-Schulz — pure GEMMs
-    (MXU) instead of XLA's LU path.
+    instead of XLA's LU path.
 
     Domain: the iteration contracts when ||I - X0 S||_2 < 1.  The Yamamoto
     S = I - Q1^T with diag(Q1) <= 0 has spectrum in the right-half disk
@@ -141,10 +134,9 @@ def newton_iters_for_aspect(aspect: float) -> int:
     column space), and Newton under-converges silently: measured on a
     1024x896 fp32 factorization, the aspect-2 corner panel had
     sigma_min(S) = 0.236 and a 5-iteration residual of 8e-5 — blowing
-    final Q orthogonality from 2.7e-6 to 2.2e-4 (experiments/
-    debug_grouped.py).  Tall panels keep the short chain; squarer panels
-    get iteration headroom (each extra iteration is 2 chained GEMMs,
-    ~0.5us at r=128)."""
+    final Q orthogonality from 2.7e-6 to 2.2e-4.  Tall panels keep the
+    short chain; squarer panels get iteration headroom (each extra
+    iteration is 2 chained GEMMs)."""
     if aspect >= 8:
         return 5
     if aspect >= 4:

@@ -13,7 +13,7 @@ eliminate it with a Householder reflector, repeat.  The result is
 ``A P = Q R`` with ``|R[0,0]| >= |R[1,1]| >= ...`` — the diagonal decay
 exposes numerical rank.
 
-TPU-first shape: ONE ``lax.fori_loop`` whose step works on full-width
+Shape: ONE ``lax.fori_loop`` whose step works on full-width
 static-shaped buffers —
   * pivot selection is a masked argmax over maintained column norms (no
     data-dependent shapes),
@@ -26,7 +26,7 @@ static-shaped buffers —
   * column norms are RECOMPUTED from the updated rows each step (one
     masked reduction — same O(mn) order as the rank-1 update itself)
     instead of LAPACK's downdate-with-retolerancing: simpler, immune to
-    the classic downdate cancellation failure, and free on the VPU.
+    the classic downdate cancellation failure, and cheap elementwise work.
 
 Cost: 2mn(k) FLOPs of rank-1 updates over min(m, n) sequential steps —
 the robustness tier's price; the unpivoted blocked drivers remain the
@@ -99,14 +99,6 @@ def _pivoted_qr_impl(A: jax.Array, B, want_q: bool, with_b: bool):
     return R, Q, Bc, perm
 
 
-def _on_tpu() -> bool:
-    # the package's single platform-detection helper (avoid a second,
-    # subtly-different implementation drifting from it)
-    from mixedprecisionblockqr_tpu.ops.blockqr import _on_tpu as _impl
-
-    return _impl()
-
-
 def _rqrcp_eligible(m: int, n: int, mode: str, block_size: int) -> bool:
     # The RQRCP tier lives in the BGS column-peel frame: reduced-Q only
     # (complete-Q for m > n needs the reflector frame's orthogonal
@@ -148,8 +140,7 @@ def pivoted_qr(
 
     ``method``:
       * 'exact' — Businger-Golub QP3 (``_pivoted_qr_impl``): exact greedy
-        pivots, min(m, n) sequential full-trailing passes (the measured
-        3.1/7.6/32.9 ms at 512/1024/2048 on one v5e chip).
+        pivots, min(m, n) sequential full-trailing passes.
       * 'rqrcp' — randomized sketch pivoting (Duersch & Gu 2017) over the
         blocked NS/BGS machinery: per-step pivot work drops from O(m w)
         to O((r + oversample) w).  Pivots are sketch-greedy (same
@@ -159,9 +150,7 @@ def pivoted_qr(
         and retried via 'exact' transparently (one scalar fetch).
       * 'auto' — 'rqrcp' when the shape qualifies
         (``_rqrcp_eligible``: m >= n, r | n, n >= 4r = 512, reduced/'r'
-        mode), else 'exact'.  Measured (one v5e chip, the Mosaic
-        sketch-selection kernel): 0.74/1.8/6.2/34.5 ms at n =
-        512/1024/2048/4096 vs exact's 2.7/7.0/32.5/~260.
+        mode), else 'exact'.
 
     Under ``jax.jit`` tracing: 'auto' resolves to 'exact' (the fallback
     cannot fetch its canary scalar in-trace — jit(pivoted_qr) stays
@@ -193,7 +182,7 @@ def pivoted_qr(
                 f"{m}x{n} mode={mode!r} block_size={block_size}"
             )
         R, Q, _, perm, worst = _rqrcp_impl(
-            A, None, want_q, False, block_size, oversample, seed, _on_tpu()
+            A, None, want_q, False, block_size, oversample, seed
         )
         if traced:
             # Explicit method='rqrcp' inside jit: defer semantics (the
@@ -254,7 +243,7 @@ def pivoted_qr_qtb(
                 f"n >= 4*block_size; got {m}x{n} block_size={block_size}"
             )
         R, _, QtB, perm, worst = _rqrcp_impl(
-            A, B, False, True, block_size, oversample, seed, _on_tpu()
+            A, B, False, True, block_size, oversample, seed
         )
         if traced:
             R, QtB = _poison_outputs(worst, R, QtB)
@@ -326,8 +315,7 @@ def _sketch_qrcp(Bsk: jax.Array, r: int):
 
 @partial(
     jax.jit,
-    static_argnames=("want_q", "with_b", "r", "oversample", "seed",
-                     "on_tpu"),
+    static_argnames=("want_q", "with_b", "r", "oversample", "seed"),
 )
 def _rqrcp_impl(
     A: jax.Array,
@@ -337,14 +325,12 @@ def _rqrcp_impl(
     r: int,
     oversample: int,
     seed: int,
-    on_tpu: bool,
 ):
     """Blocked randomized-pivoting QR (RQRCP, Duersch & Gu 2017) in the
     column-peel Block-Gram-Schmidt frame of ``ops/blockqr.py::
-    _block_qr_bgs`` — the TPU redesign of the exact ``_pivoted_qr_impl``
-    whose per-step cost is O(m n) (one full trailing pass per column,
-    min(m, n) sequential steps: the measured 3.1/7.6/32.9 ms cliff at
-    512/1024/2048).
+    _block_qr_bgs`` — the blocked redesign of the exact
+    ``_pivoted_qr_impl``, whose per-step cost is O(m n) (one full trailing
+    pass per column, min(m, n) sequential steps).
 
     Per r-wide panel: (1) sketch the CURRENT trailing carry with a fresh
     (r + oversample) x m Gaussian — re-sketching every panel makes the
@@ -353,14 +339,13 @@ def _rqrcp_impl(
     (``_sketch_qrcp`` — per-step cost O(d w), d ~ r, instead of O(m w));
     (3) gather the picked columns to the front; (4) BCGS2 re-projection
     against previous Q (fp32 HIGHEST — this is a robustness tier);
-    (5) factor the panel with the shifted three-pass Newton-Schulz chain
-    (one Mosaic dispatch on TPU); (6) one wide eager projection of the
-    rest.  The NS residual rides the same poison convention as the
+    (5) factor the panel with the shifted three-pass Newton-Schulz chain;
+    (6) one wide eager projection of the rest.  The NS residual rides the same poison convention as the
     blocked drivers; the PUBLIC wrappers retry via the exact QP3 path
     when it trips (exact rank deficiency: orthogonalizing a numerically
     zero panel is meaningless in any frame).
     """
-    from mixedprecisionblockqr_tpu.ops.pallas.ns import panel_qr_fused
+    from mixedprecisionblockqr_tpu.ops.polar import tri_cholqr_robust
 
     m, n = A.shape
     nb = n // r
@@ -383,33 +368,23 @@ def _rqrcp_impl(
         w = n - k0
         # (1) fresh sketch of the projected trailing carry: its column
         # norms ARE the QRCP residual norms, up to sketch distortion.
-        # DEFAULT (single-pass bf16) precision: ~0.4% norm noise, far
-        # below the ~1/sqrt(d) sketch distortion it rides on.
+        # DEFAULT precision (one bf16 or TF32 pass): ~0.4% norm noise at
+        # most, far below the ~1/sqrt(d) sketch distortion it rides on.
         Om = jax.random.normal(jax.random.fold_in(key, j), (d, m),
                                jnp.float32)
         # DELIBERATE exception to the fp32-matmuls-pass-HIGHEST rule
-        # (explicit DEFAULT = one bf16 MXU pass): this product only feeds
-        # pivot-norm ESTIMATES whose sketch distortion (~1/sqrt(d), ~9%)
-        # dwarfs the ~0.4% bf16 rounding; the factorization itself never
-        # consumes Bsk.
+        # (explicit DEFAULT = one reduced-precision pass): this product only
+        # feeds pivot-norm ESTIMATES whose sketch distortion (~1/sqrt(d),
+        # ~9%) dwarfs the rounding; the factorization itself never consumes
+        # Bsk.
         Bsk = jnp.matmul(Om, T, preferred_element_type=jnp.float32,
                          precision=jax.lax.Precision.DEFAULT)
         # (2) + (3): pick r pivots, gather them to the front (stable
-        # argsort of the selection rank keeps the rest in order).  On
-        # TPU the whole r-step greedy selection is ONE Mosaic dispatch
-        # (ops/pallas/sketch.py — the XLA fori was 2/3 of the tier's
-        # runtime); off-TPU the XLA loop is faster than interpret mode.
-        if on_tpu:
-            from mixedprecisionblockqr_tpu.ops.pallas.sketch import (
-                sketch_qrcp_ranks,
-            )
-
-            rank_of = sketch_qrcp_ranks(Bsk, r)
-        else:
-            sel, _ = _sketch_qrcp(Bsk, r)
-            rank_of = jnp.full((w,), w, jnp.int32).at[sel].set(
-                jnp.arange(r, dtype=jnp.int32)
-            )
+        # argsort of the selection rank keeps the rest in order).
+        sel, _ = _sketch_qrcp(Bsk, r)
+        rank_of = jnp.full((w,), w, jnp.int32).at[sel].set(
+            jnp.arange(r, dtype=jnp.int32)
+        )
         order = jnp.argsort(rank_of)
         T = jnp.take(T, order, axis=1)
         perm = perm.at[k0:].set(jnp.take(perm[k0:], order))
@@ -434,7 +409,8 @@ def _rqrcp_impl(
         # (5) shifted three-pass NS panel (robust for cond(G) up to the
         # fp32 Gram floor; beyond that the residual poisons and the
         # public wrapper falls back to exact QP3).
-        Qk, t, rres = panel_qr_fused(P, robust=True, interpret=not on_tpu)
+        Qk, t, _, rres = tri_cholqr_robust(P, sign_fix=False,
+                                           return_resid=True)
         worst = jnp.maximum(worst, 0.01 * rres)
         R = R.at[k0 : k0 + r, k0 : k0 + r].set(t)
         # (6) one wide projection of the remaining columns.

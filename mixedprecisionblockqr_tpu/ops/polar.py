@@ -1,14 +1,9 @@
 """Newton-Schulz panel orthonormalization — the custom-call-free panel path.
 
-Why this exists (round-2 perf work): on TPU, XLA's ``cholesky`` and
-``solve_triangular`` lower to library custom calls costing ~14us + ~10us
-PER CALL at r=128 (measured on v5e; experiments/prof traces), and the
-blocked QR pays that pair once per panel: 15 panels x 24us = ~37% of the
-whole 2048^2 factorization.  Batching the calls does NOT help — the TPU
-custom call loops over the batch at the same per-item cost (measured:
-batched chol+solve of 15x128x128 = 362us/step, identical to 15 singles).
-A chained 128^3 HIGHEST-precision matmul costs only ~0.25us, so the panel
-factor is instead built from pure matmuls:
+Why this exists: XLA's ``cholesky`` and ``solve_triangular`` lower to
+library calls with a fixed latency per small block, and the blocked QR pays
+that pair once per panel on its critical path.  The panel factor is instead
+built from pure matmuls:
 
 **Triangular Newton-Schulz inverse Cholesky** (``tri_inv_chol``): iterate
 an UPPER-TRIANGULAR X toward ``X^T G X = I``:
@@ -22,16 +17,16 @@ diagonal the map reduces exactly to the Newton-Schulz scalar recurrence
 ``X0 = diag(G)^{-1/2}`` (plus a power-iteration spectral-norm guard) puts
 the spectrum in (0, 1], so every eigenvalue climbs monotonically to 1:
 measured iteration counts — 5 (panel aspect 16), 6-8 (aspect 2-4), 19 for
-the final square 128-block of a random 2048^2 at cond(G) = 2.4e5
-(experiments/tri_ns_check.py).
+the final square 128-block of a random 2048^2 at cond(G) = 2.4e5.
 
 Because X is triangular, the panel's R block is recovered WITHOUT any
 solve:  ``X^T G X = I  =>  X^{-1} = X^T G`` — one matmul, upper-triangular
 by construction.  So ``P = Q t`` with ``Q = P X`` orthonormal and
 ``t = X^T G``: a complete CholeskyQR-class panel factorization with zero
-triangular library calls, zero Pallas, and a ~6-10us chained-GEMM cost.
+triangular library calls: chained GEMMs only (``tri_chain`` packages the
+chain for the drivers; ``ops/pallas/ns.py`` runs it as one GPU kernel).
 
-This is the TPU answer to the reference's per-panel host stall
+This is the on-device answer to the reference's per-panel host stall
 (``dev_mixed_precision_block_qr``'s CPU panel factor + memcpys,
 ``Cuda/qr.cu:1049-1226``).
 
@@ -75,16 +70,16 @@ def _spectral_guard(M: jax.Array) -> jax.Array:
 def tri_iters_for_aspect(aspect: float) -> int:
     """Iteration count for ``tri_inv_chol`` by panel aspect (m/r).
 
-    Measured (experiments/tri_ns_check.py): residual < 1e-6 in 5 iters at
-    aspect 16 (cond(G) ~ 3), 6 at aspect 4-8, 8 at aspect 2.  One spare
-    iteration on top; in-context every iteration costs ~3 small-op slots
-    (~2us at r=128), so tall panels should not pay the worst case.
+    Measured: residual < 1e-6 in 5 iters at aspect 16 (cond(G) ~ 3), 6 at
+    aspect 4-8, 8 at aspect 2.  One spare iteration on top; every
+    iteration is ~3 dependent small products, so tall panels should not
+    pay the worst case.
 
-    Round-5 recalibration: aspect-8 PANELS of a blocked driver see the
+    Recalibration: aspect-8 PANELS of a blocked driver see the
     trailing corner's conditioning, not a fresh random panel's — at
     1024^2/r=128 (aspect 8) the 6-iteration chain under-converged and
-    NaN-poisoned on centered-uniform data (canary working as designed;
-    masked until round 5 by the public drivers' silent retry).  One step
+    NaN-poisoned on centered-uniform data (canary working as designed).
+    One step
     down the ladder per halved aspect fixes it with +3 small dots/panel
     on the affected sizes only; the 2048^2 headline (aspect 16) keeps 6."""
     if aspect >= 16:
@@ -116,10 +111,9 @@ def tri_head_iters(iters: int) -> int:
     rightly trips on the reference's default test input class.
 
     +6 covers cond(M0) ~ 5e3-class at the aspect-16 base (needed: 10 at
-    8.8e2, 12 at 4.7e3, 14 at 1.7e4 — experiments/r7_head_calib.py;
-    smaller aspects have higher bases and reach ~1e4) for the cost of 6
-    extra r x r in-kernel dots ONCE per factorization (~3 us at the
-    2048^2 headline).  Beyond the boosted basin the canary still trips
+    8.8e2, 12 at 4.7e3, 14 at 1.7e4; smaller aspects have higher bases
+    and reach ~1e4) for the cost of 6 extra r x r iterations ONCE per
+    factorization.  Beyond the boosted basin the canary still trips
     and ``check='sync'`` retries robustly — unchanged."""
     return iters + 6
 
@@ -128,7 +122,7 @@ def ns_omega_iters(iters: int) -> int:
     """How many EARLY iterations of a triangular-NS chain run over-relaxed
     (omega = 1.5): ``min(4, max(0, iters - 4))``.
 
-    Round-5b calibration (experiments/r5_omega_check.py): the iteration's
+    Calibration: the iteration's
     small-eigenvalue escape multiplier is ``(1 + omega/2)^2`` — 2.25x/iter
     plain, 3.06x at omega = 1.5 — so over-relaxed early steps widen the
     cond(G) basin substantially at IDENTICAL dot count (the fix for
@@ -184,6 +178,56 @@ def tri_inv_chol(G: jax.Array, iters: int = 10, with_resid: bool = False,
     return X
 
 
+def tri_chain(G: jax.Array, iters: int, shift: float = 0.0,
+              refine: bool = False, omega: bool = True):
+    """The Block Gram-Schmidt panel chain on an SPD Gram: returns
+    ``(X, t, resid)`` with ``X^T G' X ~= I`` (G' = G + shift*||G|| I when
+    ``shift`` > 0) and ``t = triu(X^T G')``, the inverse of X at
+    convergence.  ``resid`` is ``max|I - X^T G' X|`` one iteration behind
+    (free), or, with ``refine=True`` (identity-seeded chain for Grams
+    already near I), the exact post-loop residual.
+
+    The plain-XLA implementation; ``ops/pallas/ns.py::ns_chain`` runs the
+    same chain as one GPU kernel."""
+    r = G.shape[0]
+    I = jnp.eye(r, dtype=jnp.float32)
+    G = G.astype(jnp.float32)
+    if shift:
+        G = G + (shift * _spectral_guard(G)) * I
+    if refine:
+        X = _tri_refine(G, iters)
+        M = jnp.matmul(X.T, jnp.matmul(G, X, precision=_HI), precision=_HI)
+        resid = jnp.max(jnp.abs(I - M))
+    else:
+        X, resid = tri_inv_chol(G, iters=iters, with_resid=True, omega=omega)
+    return X, jnp.triu(jnp.matmul(X.T, G, precision=_HI)), resid
+
+
+def tri_robust_panel(P: jax.Array, chain=tri_chain, gram=None):
+    """Shifted three-pass panel factorization ``P ~= Qk t`` for
+    ill-conditioned panels, as chains on fresh Grams (the
+    ``tri_cholqr_robust`` scheme without sign convention): pass 1 on the
+    shifted Gram (condition capped, 14 iterations converge for any
+    input), pass 2 on the Gram of ``Q1 = P X1``, an identity-seeded
+    refinement pass 3.  ``chain`` has ``tri_chain``'s signature (the
+    drivers pass the platform's implementation); ``gram(a, b)`` computes
+    ``a^T b`` (default fp32 HIGHEST; the distributed drivers add a psum).
+    Returns ``(Qk, t, resid)`` with ``resid`` the final pass's exact
+    residual: small iff the whole composition converged."""
+    if gram is None:
+        gram = lambda a, b: jnp.matmul(a.T, b, precision=_HI)
+    P = P.astype(jnp.float32)
+    X1, t1, _ = chain(gram(P, P), 14, shift=1e-3, omega=False)
+    Q1 = jnp.matmul(P, X1, precision=_HI)
+    X2, t2, _ = chain(gram(Q1, Q1), 12, omega=False)
+    Q2 = jnp.matmul(Q1, X2, precision=_HI)
+    X3, t3, resid = chain(gram(Q2, Q2), 4, refine=True)
+    Qk = jnp.matmul(Q2, X3, precision=_HI)
+    t = jnp.triu(jnp.matmul(t3, jnp.matmul(t2, t1, precision=_HI),
+                            precision=_HI))
+    return Qk, t, resid
+
+
 def tri_cholqr(
     P: jax.Array,
     iters: int = 10,
@@ -210,8 +254,8 @@ def tri_cholqr(
     computed Q's Gram (cheap: its spectrum is already near 1), pushing
     orthogonality to fp32 roundoff even at cond(G) ~ 1e5-class — used for
     the blocked drivers' ill-conditioned tail panels.  ``gram_precision``
-    trades Gram accuracy for MXU passes (HIGH = 3-pass bf16, ~fp32/2^-14
-    class — enough for the mixed policy's 2^-8 noise floor).
+    trades Gram accuracy for speed (``ops/blockqr.py::BF16_X3`` = 3-pass
+    bf16, ~2^-16 class — enough for the mixed policy's 2^-8 noise floor).
 
     ``check`` (default ON — correctness first): if the iteration's residual
     exceeds 1e-4 — panels of CORRELATED columns can out-cond any fixed
@@ -219,8 +263,8 @@ def tri_cholqr(
     (``h_generate_random_matrix``) produces exactly such panels, and the
     silent failure mode is a garbage factorization — a ``lax.cond`` falls
     back to the direct chol+solve_triangular inverse (the custom calls
-    execute only when taken).  A TPU ``lax.cond`` costs ~11 us, so the
-    blocked drivers instead pass ``check=False, return_resid=True`` and arm
+    execute only when taken).  A per-panel ``lax.cond`` sits on the
+    critical path, so the blocked drivers instead pass ``check=False, return_resid=True`` and arm
     ONE deferred whole-factorization fallback on the max residual
     (``ops/blockqr.py``); the per-panel cond remains the safe default for
     standalone callers.  ``return_resid`` appends the residual to the
@@ -241,8 +285,7 @@ def tri_cholqr(
         # the true residual (the repo-wide convention: 1.3e-4 one-behind
         # measured on a converged panel whose true residual was 2e-7, see
         # _poison_if_unconverged).  The raw value here falsely tripped
-        # the ~35us chol+solve fallback on healthy panels (review
-        # finding); a stalled chain (~6e-2) still squares to 3.6e-3 >>
+        # the chol+solve fallback on healthy panels; a stalled chain (~6e-2) still squares to 3.6e-3 >>
         # tol and takes the fallback.
         X = jax.lax.cond(resid * resid < 1e-4, lambda g: X, _direct, G)
     t = jnp.triu(jnp.matmul(X.T, G, precision=_HI))  # X^{-1} = X^T G

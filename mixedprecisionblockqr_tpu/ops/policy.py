@@ -3,9 +3,9 @@
 The reference implements its precision boundary as an explicit cast kernel
 (``dev_cpy_and_cast_array``, ``Cuda/mmult.cuh:169-200``) feeding an FP16
 TensorCore GEMM with FP32 accumulation (``dev_tensorcore_mmult_tiled``,
-``Cuda/mmult.cuh:252-300``).  On TPU the same boundary is a dtype policy: cast
+``Cuda/mmult.cuh:252-300``).  Here the same boundary is a dtype policy: cast
 GEMM *inputs* to bf16 and accumulate in fp32 via ``preferred_element_type`` —
-the MXU natively consumes bf16 with an fp32 accumulator, so no pad-to-16 /
+XLA hands such products to cuBLAS on the tensor cores, so no pad-to-16 /
 cast-kernel machinery is needed (the compiler lays out tiles).
 
 bf16 has an 8-bit mantissa vs fp16's 11-bit, so the mixed-precision error
@@ -67,7 +67,7 @@ class DTypePolicy:
 
 
 POLICY_FP32 = DTypePolicy()
-# Flagship: fp32 panel + bf16 MXU GEMMs with fp32 accumulation.
+# Flagship: fp32 panel + bf16 tensor-core GEMMs with fp32 accumulation.
 POLICY_MIXED = DTypePolicy(
     trailing=jnp.bfloat16, q_update=jnp.bfloat16, precision_bits=8
 )
@@ -92,7 +92,7 @@ POLICY_BF16_FAST = DTypePolicy(
     panel=jnp.bfloat16, trailing=jnp.bfloat16, q_update=jnp.bfloat16,
     q_store=jnp.bfloat16, precision_bits=8,
 )
-# fp64 oracle policy (CPU or x64-enabled TPU; the reference's fp64 study
+# fp64 oracle policy (x64-enabled JAX; the reference's fp64 study
 # column, performance_test_result/error.md).
 POLICY_FP64 = DTypePolicy(
     panel=jnp.float64, trailing=jnp.float64, q_update=jnp.float64,
@@ -124,15 +124,15 @@ def matmul(
 ) -> jax.Array:
     """Policy-aware matmul: the precision boundary of the framework.
 
-    Casting the inputs is the TPU analog of the reference's
+    Casting the inputs is the analog of the reference's
     ``dev_cpy_and_cast_array`` fp32->fp16 boundary (``Cuda/qr.cu:1148-1163``);
     ``preferred_element_type=accum_dtype`` is the analog of its fp32
     accumulator fragments (``Cuda/mmult.cuh:276-299``).
 
     For fp32 inputs we request ``Precision.HIGHEST`` so XLA performs a true
-    fp32-quality matmul (multi-pass bf16 on the MXU) instead of the default
-    single-pass bf16 — that default would silently degrade the "fp32" paths
-    the 2^-23*m acceptance bound assumes.
+    fp32 matmul instead of the default — one TF32 pass on a GPU, which
+    would silently degrade the "fp32" paths the 2^-23*m acceptance bound
+    assumes.
     """
     in_dtype = jnp.dtype(in_dtype)
     if precision is None:

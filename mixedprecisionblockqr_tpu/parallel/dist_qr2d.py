@@ -3,7 +3,7 @@
 Extends the 1-D row-sharded driver (``dist_qr.py``) to matrices sharded over
 BOTH dimensions — ``P('rows', 'cols')`` — the layout for problems whose
 columns don't fit one device's HBM or whose trailing updates should scale
-over a second ICI axis (tensor-parallel analog):
+over a second mesh axis (tensor-parallel analog):
 
   * the panel lives on ONE column shard; its owner column factors it by
     row-sharded TSQR exactly as in 1-D (one (r x r)-blocks ``all_gather``
@@ -34,8 +34,6 @@ from mixedprecisionblockqr_tpu.parallel.dist_qr import (
     _MESHES,
     _mesh_key,
     _panel_reflector_cols,
-    _robust_panel_dist,
-    _tri_chain_dist,
 )
 from mixedprecisionblockqr_tpu.parallel.mesh import ROWS_AXIS
 
@@ -57,7 +55,6 @@ def _dist2d_local(
     policy: DTypePolicy,
     panel_method: str,
     loop_mode: str = "unroll",
-    on_tpu: bool = False,
 ):
     h, wc = A_loc.shape                       # local (m/dr, n/dc) block
     r = min(block_size, n)
@@ -99,7 +96,6 @@ def _dist2d_local(
             P_cols = jnp.where(my_col == j0, P_cols, 0.0)
             Y, Sinv, _ = _panel_reflector_cols(
                 P_cols, lam, r, h, rows_axis, pm, square_final,
-                on_tpu=on_tpu,
             )
             Y = jax.lax.psum(
                 jnp.where(my_col == j0, Y, jnp.zeros_like(Y)), cols_axis
@@ -173,7 +169,6 @@ def _dist2d_local(
         P_cols = jnp.where(my_col == j0, P_cols, 0.0)
         Y, Sinv, R_pan = _panel_reflector_cols(
             P_cols, lam, w, h, rows_axis, pm, square_final=(m - lam == w),
-            on_tpu=on_tpu,
         )
         Y = jax.lax.psum(
             jnp.where(my_col == j0, Y, jnp.zeros_like(Y)), cols_axis
@@ -250,7 +245,7 @@ def _dist2d_bgs_local(
     cols_axis: str,
     policy: DTypePolicy,
     reorth: bool = True,
-    on_tpu: bool = False,
+    platform: str = "cpu",
 ):
     """2-D sharded Block Gram-Schmidt — the throughput-flagship panel
     structure (``ops/blockqr.py::_block_qr_bgs`` / 1-D
@@ -324,11 +319,14 @@ def _dist2d_bgs_local(
         )
         return jax.lax.psum(Wfull, cols_axis)
 
+    from mixedprecisionblockqr_tpu.ops.blockqr import chain_for
     from mixedprecisionblockqr_tpu.ops.polar import (
         tri_head_iters,
         tri_iters_for_aspect,
+        tri_robust_panel,
     )
 
+    chain = chain_for(platform)
     base_iters = tri_iters_for_aspect(m / r)
     worst_resid = jnp.float32(0.0)
     # Q by concatenation INTO the working buffer: finished columns of
@@ -356,9 +354,9 @@ def _dist2d_bgs_local(
             )
             R = R.at[:, lam : lam + r].add(scatter_rows(W, lam, r))
         if j >= nb - max(2, nb // 8):
-            Qk, t, rresid = _robust_panel_dist(P_loc, psum_gram, r,
-                                               on_tpu=on_tpu)
-            worst_resid = jnp.maximum(worst_resid, rresid)
+            Qk, t, rresid = tri_robust_panel(P_loc, chain, psum_gram)
+            # robust tier: 1e-2 breakdown threshold
+            worst_resid = jnp.maximum(worst_resid, 0.01 * rresid)
             if reorth and lam > 0:
                 # Post-factorization rescrub (docs/ALGORITHMS.md D9,
                 # two-axis form — same fold as ops/blockqr.py::
@@ -370,8 +368,7 @@ def _dist2d_bgs_local(
                     jnp.matmul(Qfin, W, precision=_HI), cols_axis
                 )
                 Gq = psum_gram(q2, q2)
-                X3, s, rs = _tri_chain_dist(Gq, 4, omega=False,
-                                            on_tpu=on_tpu)
+                X3, s, rs = chain(Gq, 4, omega=False)
                 q2 = jnp.matmul(q2, X3, precision=_HI)
                 worst_resid = jnp.maximum(worst_resid, rs * rs)
                 R = R.at[:, lam : lam + r].add(
@@ -387,7 +384,7 @@ def _dist2d_bgs_local(
                 else base_iters if j < 0.75 * nb else base_iters + 4
             )
             G = psum_gram(P_loc, P_loc)
-            X, t, resid = _tri_chain_dist(G, iters, on_tpu=on_tpu)
+            X, t, resid = chain(G, iters)
             Qk = jnp.matmul(P_loc, X, precision=_HI)
             worst_resid = jnp.maximum(worst_resid, resid * resid)
         R = R.at[lam : lam + r, lam : lam + r].set(jnp.triu(t))
@@ -429,7 +426,7 @@ def _dist2d_bgs_local(
 @lru_cache(maxsize=None)
 def _jitted_2d(m, n, block_size, policy, with_b, want_q, rows_axis,
                cols_axis, key, panel_method, loop_mode="unroll",
-               on_tpu=False):
+               platform="cpu"):
     # Mesh interning shared with the 1-D driver (_mesh_key/_MESHES —
     # review finding: this module kept a duplicate copy of both).
     mesh = _MESHES[key]
@@ -442,7 +439,7 @@ def _jitted_2d(m, n, block_size, policy, with_b, want_q, rows_axis,
                 m=m, n=n, block_size=block_size, rows_axis=rows_axis,
                 cols_axis=cols_axis, policy=policy,
                 reorth=panel_method in ("bgs", "bgs2"),
-                on_tpu=on_tpu,
+                platform=platform,
             )
             return Q_out, R_out, QtB
 
@@ -463,7 +460,7 @@ def _jitted_2d(m, n, block_size, policy, with_b, want_q, rows_axis,
             Qt if want_q else None,
             m=m, n=n, block_size=block_size, rows_axis=rows_axis,
             cols_axis=cols_axis, policy=policy, panel_method=panel_method,
-            loop_mode=loop_mode, on_tpu=on_tpu,
+            loop_mode=loop_mode,
         )
         return (
             A_out,
@@ -578,11 +575,10 @@ def dist_block_qr_2d(
                 "2-D BGS materializes the reduced Q (concatenation); "
                 "complete-Q for m > n needs the reflector tiers"
             )
-        from mixedprecisionblockqr_tpu.ops.blockqr import _on_tpu as _ot
-
         fn = _jitted_2d(
             m, n, block_size, policy, with_b, mode != "r", rows_axis,
-            cols_axis, _mesh_key(mesh), panel_method, "unroll", _ot(),
+            cols_axis, _mesh_key(mesh), panel_method, "unroll",
+            jax.default_backend(),
         )
         Q_out, R_out, QtB = fn(A, B)
         rep = NamedSharding(mesh, P())
@@ -602,11 +598,9 @@ def dist_block_qr_2d(
         else jnp.zeros((dr, dc), policy.accum),
         NamedSharding(mesh, P(rows_axis, cols_axis)),
     )
-    from mixedprecisionblockqr_tpu.ops.blockqr import _on_tpu
-
     fn = _jitted_2d(
         m, n, block_size, policy, with_b, want_q, rows_axis, cols_axis,
-        _mesh_key(mesh), panel_method, loop_mode, _on_tpu(),
+        _mesh_key(mesh), panel_method, loop_mode,
     )
     A_out, B_out, Qt_out = fn(A, B, Qt0)
     rep = NamedSharding(mesh, P())

@@ -9,10 +9,10 @@ reconstruction ("need fix Q", ``python/ca_qr.py:73-75``).  Here:
   * leaves and tree nodes are compact-WY panel factorizations (V, T) —
     reduced Q factors only, never h x h,
   * every tree level is one ``vmap``-batched panel QR (all pairs in a level
-    factor simultaneously on the MXU),
+    factor simultaneously),
   * full Q reconstruction by a top-down sweep of (n x n) path factors,
   * a mesh-sharded variant (``tsqr_sharded``): local leaf QR per device,
-    one ``all_gather`` of the tiny (n x n) R factors over ICI, redundant
+    one ``all_gather`` of the tiny (n x n) R factors, redundant
     replicated tree, local Q fix-up — the standard single-collective TSQR.
 
 Rank caveat: Q reconstruction assumes the leaf R factors are nonsingular
@@ -154,10 +154,9 @@ def tsqr(
     'cholqr2s' (shifted CholeskyQR — all-GEMM and safe to cond ~ 1/eps_f32;
     use for ill-conditioned tall-skinny problems where plain cholqr2's
     Gram-squared domain, cond <~ 4e3 in fp32, is exceeded).
-    With a cholqr method and no explicit leaf count, the single-chip
-    direct factorization (L=1, no tree) is used — on one chip the tree
-    only adds passes over the data (measured 70 us vs 590 us at
-    100000x64); the reduction tree earns its keep across devices
+    With a cholqr method and no explicit leaf count, the single-device
+    direct factorization (L=1, no tree) is used — on one device the tree
+    only adds passes over the data; the reduction tree earns its keep across devices
     (``tsqr_sharded``) or for Householder-leaf robustness.
     Returns (Q (m x n), R (n x n)).
     """
@@ -203,7 +202,7 @@ def tsqr_sharded(
     (Q row-sharded like A, R replicated).
 
     Communication: ONE ``all_gather`` of the (n x n) local R factors over the
-    ICI axis — O(d * n^2) bytes — after which every device runs the tiny
+    mesh axis — O(d * n^2) bytes — after which every device runs the tiny
     reduction tree redundantly (deterministic, replicated) and fixes up its
     local Q block with its own path factor.  This is the communication
     pattern the reference's single-GPU prototype cannot express.

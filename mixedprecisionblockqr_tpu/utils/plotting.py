@@ -31,7 +31,7 @@ def plot_logs(
     if labels is None:
         labels = [os.path.splitext(os.path.basename(p))[0] for p in log_paths]
         if len(set(labels)) != len(labels):
-            # Same basename from different dirs (e.g. tpu vs cpu runs):
+            # Same basename from different dirs (e.g. gpu vs cpu runs):
             # disambiguate with the parent directory.
             labels = [
                 f"{os.path.basename(os.path.dirname(os.path.abspath(p))) or '.'}/"

@@ -219,7 +219,7 @@ def test_block_qr_differentiable():
 def test_block_qr_bgs_scan_mode():
     """Scan-mode BGS (_block_qr_bgs_scan): one compiled panel step,
     classical-GS projections against the Q buffer, robust NS panels —
-    the compile-light path for 8192+ (BENCH_NOTES round-3)."""
+    the compile-light path for 8192+."""
     from mixedprecisionblockqr_tpu.ops import metrics
     from mixedprecisionblockqr_tpu.ops.blockqr import block_qr
 
@@ -238,15 +238,15 @@ def test_block_qr_bgs_scan_mode():
     # Acceptance criteria + an absolute orthogonality ceiling: the fp32
     # TIGHT gate (2^-23*sqrt(m) ~ 3e-6) sits below the NS-panel orth floor
     # (~1e-5) — that gate is calibrated for the mixed-policy bench config;
-    # bgs is the throughput tier (see BENCH_NOTES quality ladder).
+    # bgs is the throughput tier (see the quality ladder in PERF.md).
     assert rep2.all_ok and rep2.orthogonality < 1e-4, str(rep2)
 
 
 def test_block_qr_bgs2_scan_grouped_kills_intergroup_drift():
     """'bgs2' in scan mode = grouped inter-group BCGS2: the double Qbuf
     pass before each group factors scrubs the single-pass CGS drift that
-    grows with n/r (the 16384^2 fp32-criterion breaker,
-    experiments/r5_dist_cert_cpu.jsonl) while KEEPING the group width —
+    grows with n/r (the 16384^2 fp32-criterion breaker) while KEEPING the
+    group width —
     half the per-panel 'bgs' tier's Qbuf traffic.  Must beat bgs1's
     orthogonality on the same matrix and keep the grouped structure
     (same group_panels accepted)."""
@@ -271,8 +271,8 @@ def test_block_qr_bgs2_scan_grouped_kills_intergroup_drift():
 
 
 def test_tail_rescrub_kills_corner_leak():
-    """The reorth tiers' post-factorization rescrub (round-5b ladder-floor
-    isolation, experiments/r5_ladder_floor.jsonl): the group-start BCGS2
+    """The reorth tiers' post-factorization rescrub (docs/ALGORITHMS.md
+    D9): the group-start BCGS2
     scrub runs BEFORE factorization, and the ill-conditioned trailing
     corner amplifies its leftovers by ~kappa — every Q^T Q block sat at
     fp32 roundoff EXCEPT the robust tail panel's cross terms (~5e-5
@@ -316,22 +316,18 @@ def test_tail_rescrub_covers_whole_robust_corner():
 
 
 def test_perpanel_fallback_matches_group_kernel_precision_contract():
-    """The reorth tiers' precision contract ('ALL in-group dots HIGHEST')
-    must not depend on buffer size: the group KERNEL runs eager in-group
-    projections fp32 (bf16_dots=False), but the per-panel fallback —
-    taken whenever the m x g*r buffer exceeds the VMEM quota, i.e. at
-    8192^2+ — ran them at mm_t (bf16 under mixed policies), flooring
-    orth at the in-group single-pass bf16 drift (~2^-11: measured
-    4.9e-4 at 8192^2 mixed 'high' on chip vs 1.8e-6 for fp32 'high').
-    ns_impl='pallas' IS the fallback path; post-fix it reaches fp32-class
-    orth under MIXED_FAST (measured here: 2.3e-6)."""
+    """The reorth tiers' precision contract ('ALL in-group dots HIGHEST'):
+    eager in-group projections at mm_t (bf16 under mixed policies) floor
+    orth at the in-group single-pass bf16 drift (~2^-11); with fp32
+    in-group dots the per-panel driver reaches fp32-class orth under
+    MIXED_FAST."""
     from mixedprecisionblockqr_tpu.ops.blockqr import _block_qr_bgs
     from mixedprecisionblockqr_tpu.ops.policy import POLICY_MIXED_FAST
 
     a = _rand(512, 512, seed=7) - 0.5
     R, Q, _ = _block_qr_bgs(
         jnp.asarray(a), 64, POLICY_MIXED_FAST, True, None,
-        group_panels=4, on_tpu=False, reorth=True, ns_impl="pallas",
+        group_panels=4, reorth=True,
     )
     orth = float(metrics.orthogonality_error(np.asarray(Q, np.float32)))
     assert orth < 1e-5, (
@@ -340,27 +336,22 @@ def test_perpanel_fallback_matches_group_kernel_precision_contract():
 
 
 def test_block_qr_bgs_mixed_group_and_perpanel_groups():
-    """Regression: when group-kernel groups PRECEDE a per-panel group that
-    still has trailing columns (m > 3072 sends robust-tail groups through
-    the per-panel chain kernels; a robust tail spanning TWO groups makes
-    the first of them non-final), the per-group trailing projection must
-    concatenate exactly that group's panel Qs.  Indexing qcols by panel
-    number (qcols[js[0]:]) crashed here — qcols holds ONE entry per
-    group-kernel group."""
+    """Regression: a robust tail spanning TWO groups makes the first of
+    them non-final, and its per-group trailing projection must concatenate
+    exactly that group's panel Qs (indexing qcols by a stale panel offset
+    crashed here)."""
     from mixedprecisionblockqr_tpu.ops import metrics
     from mixedprecisionblockqr_tpu.ops.blockqr import _block_qr_bgs
 
-    # m > 3072: robust groups go per-panel (centered uniform — the canary
-    # legitimately poisons the uncentered rank-1-dominated draw here).
+    # Centered uniform — the canary legitimately poisons the uncentered
+    # rank-1-dominated draw here.
     a = _rand(3200, 768, seed=31) - 0.5
     # robust_tail=5 > group_panels=4: robust panels span groups 1 AND 2 of
-    # nb=12 — group 0 takes the group kernel, group 1 is per-panel WITH
-    # trailing columns (the crash site: HEAD raised "Incompatible shapes
-    # for broadcasting: (64, 256) and requested shape (256, 256)"),
-    # group 2 is the final group.
+    # nb=12 — group 1 has robust panels WITH trailing columns (the crash
+    # site), group 2 is the final group.
     R_full, Q, _ = _block_qr_bgs(
         jnp.asarray(a), 64, POLICY_FP32, want_q=True, B=None,
-        group_panels=4, on_tpu=False, reorth=False, robust_tail=5,
+        group_panels=4, reorth=False, robust_tail=5,
     )
     rep = metrics.evaluate(a, np.asarray(Q)[:, :768],
                            np.asarray(R_full)[:768], precision_bits=23)
@@ -470,9 +461,8 @@ def test_fp64_rejects_fp32_ns_tiers_qtb():
 
 
 def test_resolve_auto_dispatch_table():
-    """panel_method='auto' encodes the BENCH_NOTES perf map (round-2
-    VERDICT item 2).  Assert the table's choices for the measured configs
-    on a (simulated) TPU backend and the robust fallbacks elsewhere."""
+    """panel_method='auto' encodes the dispatch table.  Assert its choices
+    on a (named) GPU platform and the robust fallbacks elsewhere."""
     from mixedprecisionblockqr_tpu.ops.blockqr import resolve_panel_config
     from mixedprecisionblockqr_tpu.ops.policy import (
         POLICY_FP64,
@@ -480,23 +470,20 @@ def test_resolve_auto_dispatch_table():
         POLICY_MIXED_FAST,
     )
 
-    def auto(m, n, policy, on_tpu=True, mode="complete"):
+    def auto(m, n, policy, platform="gpu", mode="complete"):
         return resolve_panel_config(
-            m, n, 128, policy, "auto", "unroll", 4, mode=mode, on_tpu=on_tpu
+            m, n, 128, policy, "auto", "unroll", 4, mode=mode,
+            platform=platform,
         )
 
-    # The measured per-size winners (BENCH_NOTES round-3 perf map).
     assert auto(2048, 2048, POLICY_MIXED) == ("bgs1", "unroll", 8)
-    # Round-10: g8 sweeps the 3072-12288 band (r10_bandwide.jsonl); the
-    # g8 buffer also pushes 4096 past the group-kernel VMEM quota, which
-    # fixes the fused-kernel serialization cliff (113 -> 142-150 TF).
     assert auto(4096, 4096, POLICY_MIXED) == ("bgs1", "unroll", 8)
     assert auto(8192, 8192, POLICY_MIXED_FAST) == ("bgs1", "unroll", 8)
     assert auto(16384, 16384, POLICY_MIXED_FAST) == ("bgs1", "scan", 4)
     # fp32 -> the reorthogonalized BGS tier (fp32-roundoff quality).
     assert auto(2048, 2048, POLICY_FP32)[0] == "bgs"
-    # Off-TPU, fp64, and hostile shapes -> the robust reference tier.
-    assert auto(2048, 2048, POLICY_MIXED, on_tpu=False)[0] == "householder"
+    # Other platforms, fp64, and hostile shapes -> the robust reference tier.
+    assert auto(2048, 2048, POLICY_MIXED, platform="cpu")[0] == "householder"
     assert auto(2048, 2048, POLICY_FP64)[0] == "householder"
     assert auto(2048, 1000, POLICY_MIXED)[0] == "householder"  # r !| n
     # complete-mode tall matrices cannot take the concatenation-Q BGS
@@ -519,14 +506,14 @@ def test_qr_auto_default_end_to_end():
 
 def test_quality_ladder_mapping():
     """quality= maps to the documented BGS ladder rungs under auto dispatch
-    (round-3 VERDICT item 5) — without knowing internal method strings."""
+    — without knowing internal method strings."""
     from mixedprecisionblockqr_tpu.ops.blockqr import resolve_panel_config
     from mixedprecisionblockqr_tpu.ops.policy import POLICY_MIXED
 
-    def auto(m, n, policy, quality, on_tpu=True):
+    def auto(m, n, policy, quality, platform="gpu"):
         return resolve_panel_config(
             m, n, 128, policy, "auto", "unroll", 4, mode="complete",
-            on_tpu=on_tpu, quality=quality,
+            platform=platform, quality=quality,
         )
 
     assert auto(2048, 2048, POLICY_MIXED, "fast") == ("bgs1", "unroll", 8)
@@ -538,8 +525,8 @@ def test_quality_ladder_mapping():
     # fp32 default = the 'high' rung; quality trades down explicitly.
     assert auto(2048, 2048, POLICY_FP32, None)[0] == "bgs"
     assert auto(2048, 2048, POLICY_FP32, "fast")[0] == "bgs1"
-    # Off-TPU every rung stays on the robust oracle tier.
-    assert auto(2048, 2048, POLICY_MIXED, "high", on_tpu=False)[0] == (
+    # On other platforms every rung stays on the robust oracle tier.
+    assert auto(2048, 2048, POLICY_MIXED, "high", platform="cpu")[0] == (
         "householder"
     )
     # quality= is an auto-dispatch knob: explicit panel_method conflicts.
@@ -548,20 +535,20 @@ def test_quality_ladder_mapping():
     with pytest.raises(ValueError, match="quality"):
         resolve_panel_config(
             2048, 2048, 128, POLICY_MIXED, "bgs1", "unroll", 4,
-            on_tpu=True, quality="fast",
+            platform="gpu", quality="fast",
         )
     with pytest.raises(ValueError, match="quality"):
         resolve_panel_config(
             2048, 2048, 128, POLICY_MIXED, "auto", "unroll", 4,
-            on_tpu=True, quality="ultra",
+            platform="gpu", quality="ultra",
         )
 
 
 def test_quality_ladder_end_to_end():
     """Each ladder rung produces a criteria-passing factorization through
     the public qr() (CPU resolves to householder; the mapping itself is
-    asserted in test_quality_ladder_mapping, the on-chip quality numbers
-    in tests_tpu/)."""
+    asserted in test_quality_ladder_mapping, the on-card quality numbers
+    by chip_smoke.py)."""
     a = _rand(256, 256, seed=7)
     for quality in ("fast", "balanced", "high", "robust"):
         Q, R = qr(a, block_size=64, policy=POLICY_FP32, quality=quality)
@@ -594,27 +581,12 @@ def test_check_defer_propagates_nan_poison():
     assert rep.all_ok, str(rep)
 
 
-def test_group_kernel_vmem_gating():
-    """The group kernel's VMEM boundary (round-3 VERDICT weak item 3):
-    headline shapes fit, the measured-OOM shapes do not, and the quota is
-    evaluated against the EFFECTIVE (post-shrink) group width."""
-    from mixedprecisionblockqr_tpu.ops.blockqr import _group_kernel_fits
-
-    assert _group_kernel_fits(2048, 128, 8)      # the headline config
-    assert _group_kernel_fits(3072, 128, 4)
-    assert not _group_kernel_fits(4096, 128, 8)  # 19.12M measured OOM class
-    assert not _group_kernel_fits(3072, 128, 8)  # 12M buffer > 10M quota
-    assert not _group_kernel_fits(8192, 128, 4)  # m-cap (robust-tail VMEM)
-    assert _group_kernel_fits(4096, 128, 4)      # quota ok under the cap
-
-
 @pytest.mark.parametrize("pm", ["bgs1", "bgs2", "bgs"])
 @pytest.mark.parametrize("m,n", [(256, 256), (192, 128)])
 def test_bgs_r_exactly_triangular(pm, m, n):
     """The BGS drivers assemble R from exact pieces (zeros init, masked
     r x r diagonal blocks, strictly-above projection blocks) so the
-    round-8 glue trim dropped the final full-matrix ``jnp.triu`` (~24 us
-    / 16 MB at 2048^2).  This is the guard: every below-diagonal entry
+    driver skips the final full-matrix ``jnp.triu``.  This is the guard: every below-diagonal entry
     must be EXACTLY zero — any new diagonal-block producer that forgets
     its `where(cols >= rows, ..., 0)` mask fails here, not in prod."""
     from mixedprecisionblockqr_tpu.ops.policy import POLICY_MIXED_FAST

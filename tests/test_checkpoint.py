@@ -1,7 +1,7 @@
 """Checkpoint/resume (SURVEY §5): the segmented scan-BGS driver must
 survive interruption and resume to a result identical to an
 uninterrupted run — the capability the reference never needed at its
-single-GPU ~2000^2 scale but a multi-minute TPU/mesh run does."""
+single-GPU ~2000^2 scale but a multi-minute large or sharded run does."""
 
 import numpy as np
 import jax

@@ -79,18 +79,10 @@ def test_newton_inv_matches_lu():
     )
 
 
-def test_block_qr_householder_pallas_panels():
-    A = np.random.default_rng(7).random((192, 96)).astype(np.float32) - 0.5
-    Q, R = block_qr(A, block_size=32, mode="complete",
-                    panel_method="householder_pallas")
-    rep = metrics.evaluate(A, Q, R, precision_bits=23)
-    assert rep.all_ok, str(rep)
-
-
 def test_cholqr_square_matrix_hybrid():
     """Square matrices: the final panel is square/ill-conditioned — the
     hybrid rule must route it to the Householder panel so CholeskyQR
-    methods stay accurate (regression for the TPU sweep blow-up)."""
+    methods stay accurate (regression for a square-sweep blow-up)."""
     A = np.random.default_rng(8).random((256, 256)).astype(np.float32) - 0.5
     for pm in ("cholqr1", "cholqr2"):
         Q, R = block_qr(A, block_size=128, policy=POLICY_MIXED,

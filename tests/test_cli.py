@@ -33,7 +33,7 @@ def test_cli_dataset_qr_solve_plot(tmp_path):
         )
         == 0
     )
-    assert main(["plot", f"{d}/log/tpu_block_fp32.txt", "--out", f"{d}/p"]) == 0
+    assert main(["plot", f"{d}/log/cpu_block_fp32.txt", "--out", f"{d}/p"]) == 0
     assert os.listdir(f"{d}/p")
 
 
@@ -170,7 +170,7 @@ def test_cli_suite_resume_skips_done(tmp_path, capsys):
                  "--log-dir", d]) == 0
     second = capsys.readouterr().out
     assert "suite complete, 0 failures" in second
-    assert second.count("tpu_block_fp32") < first.count("tpu_block_fp32")
+    assert second.count("cpu_block_fp32") < first.count("cpu_block_fp32")
 
 
 def test_cli_dist_quality_flag(tmp_path, capsys):

@@ -480,9 +480,8 @@ def test_dist_bgs2_scan_grouped(mesh):
     """Distributed 'bgs2' scan tier (grouped inter-group BCGS2): keeps the
     grouped collective structure (one DOUBLE Qbuf pass per group) while
     scrubbing the inter-group drift that broke the 16384^2 fp32 criterion
-    for bgs1 (orth 4.0e-3 vs limit 1.95e-3 —
-    experiments/r5_dist_cert_cpu.jsonl; bgs2 at 4096^2: 3.9e-5 vs bgs1's
-    1.6e-4).  The drift only separates the tiers at cert scale — suite
+    for bgs1 (orth 4.0e-3 vs limit 1.95e-3 on an 8-device CPU mesh; bgs2
+    at 4096^2: 3.9e-5 vs bgs1's 1.6e-4).  The drift only separates the tiers at cert scale — suite
     shapes sit on the fp32 roundoff floor — so this is a PATH-correctness
     test: the scrubbed driver must deliver floor-class quality and the
     true factorization (R-diag parity with np.linalg.qr), and never be

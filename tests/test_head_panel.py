@@ -9,8 +9,7 @@ the aspect-calibrated chain budgets cannot converge: before round 7 every
 unrolled NS fast tier (bgs1/bgs2/bgs/polar) NaN-poisoned on the
 reference's own input class at every size (measured stall: one-behind
 0.5 at 1024^2 r=128).  Fix: ``ops/polar.py::tri_head_iters`` — the first
-panel's chain runs base + 6 iterations (calibration:
-experiments/r7_head_calib.py).
+panel's chain runs base + 6 iterations.
 """
 
 import jax.numpy as jnp

@@ -56,7 +56,7 @@ def test_lstsq_tall():
 
 def test_lstsq_quality_passthrough():
     """lstsq forwards the quality-ladder knob to the blocked driver (the
-    same API surface as qr(quality=...)); off-TPU auto resolves to the
+    same API surface as qr(quality=...)); off-GPU auto resolves to the
     householder oracle so this pins the plumbing, not the tier choice."""
     rng = np.random.default_rng(3)
     A = rng.random((256, 128)).astype(np.float32)

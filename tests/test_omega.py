@@ -70,7 +70,7 @@ def test_conditioned_draw_no_false_poison():
     )
     R, Q, _ = _block_qr_bgs(
         jnp.asarray(a), 64, POLICY_MIXED_FAST, True, None, group_panels=8,
-        on_tpu=False, reorth=False, chain_mid=True,
+        reorth=False,
     )
     Rn = np.asarray(R, np.float32)
     assert np.isfinite(Rn[0, 0]), "canary false-fired on a cond-1e3 draw"
@@ -88,7 +88,7 @@ def test_hostile_draw_still_poisons():
     )
     R, Q, _ = _block_qr_bgs(
         jnp.asarray(a), 64, POLICY_MIXED_FAST, True, None, group_panels=8,
-        on_tpu=False, reorth=False, chain_mid=True,
+        reorth=False,
     )
     assert not np.isfinite(np.asarray(R[0, 0]))
 

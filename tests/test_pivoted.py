@@ -164,7 +164,7 @@ def test_pivoted_qr_complete_mode():
 
 # ---------------------------------------------------------------------------
 # RQRCP tier (randomized sketch pivoting, Duersch & Gu 2017): the blocked
-# TPU-native pivoted QR.  Pivots are sketch-greedy (same rank-revealing
+# pivoted QR.  Pivots are sketch-greedy (same rank-revealing
 # class as QP3, not bit-identical pivots), so these tests assert the
 # factorization CONTRACT (exact reconstruction, orthonormal Q, valid
 # permutation, running-max diagonal decay, rank detection) rather than
@@ -273,45 +273,81 @@ def test_rqrcp_deterministic_given_seed():
     np.testing.assert_array_equal(np.asarray(R1), np.asarray(R2))
 
 
-def test_sketch_qrcp_kernel_matches_xla_oracle():
-    """The Mosaic sketch-QRCP selection kernel (ops/pallas/sketch.py, the
-    on-TPU path of _rqrcp_impl) must pick the SAME pivots in the SAME
-    order as the XLA fori oracle — including non-bucket widths that
-    exercise the -inf padding."""
-    from mixedprecisionblockqr_tpu.ops.pallas.sketch import (
-        sketch_qrcp_ranks,
-    )
+def _greedy_qrcp_oracle(B, r):
+    """Float64 greedy QRCP selection by explicit re-orthogonalization (no
+    norm downdates): at each step the unselected column of largest
+    residual norm, then a full Gram-Schmidt projection of every column."""
+    B = np.asarray(B, np.float64).copy()
+    w = B.shape[1]
+    selected = np.zeros(w, bool)
+    sel, ds = [], []
+    for _ in range(r):
+        norms = np.where(selected, -np.inf, np.sum(B * B, axis=0))
+        j = int(np.argmax(norms))
+        q = B[:, j].copy()
+        nq = np.linalg.norm(q)
+        sel.append(j)
+        ds.append(nq)
+        selected[j] = True
+        if nq > 0:
+            q /= nq
+            B -= np.outer(q, q @ B)
+    return np.array(sel), np.array(ds)
+
+
+@pytest.mark.parametrize("d,w,r", [(24, 256, 16), (40, 300, 32),
+                                   (136, 500, 128)])
+def test_sketch_qrcp_matches_numpy_greedy(d, w, r):
+    """_sketch_qrcp (the XLA selection loop the RQRCP tier runs) picks the
+    greedy QRCP pivots in order, with their residual norms, on column
+    scales spread over several orders of magnitude — checked against a
+    float64 oracle for as long as the oracle's own choice is unambiguous
+    (a near-tie in residual norm may legitimately go either way in fp32)."""
     from mixedprecisionblockqr_tpu.ops.pivoted import _sketch_qrcp
 
-    rng = np.random.default_rng(0)
-    for d, w, r in [(24, 256, 16), (40, 300, 32), (136, 500, 128)]:
-        a = rng.standard_normal((d, w)).astype(np.float32)
-        a = a * np.exp(rng.standard_normal(w)).astype(np.float32)
-        sel, _ = _sketch_qrcp(jnp.asarray(a), r)
-        rank_xla = np.full(w, w, np.int32)
-        rank_xla[np.asarray(sel)] = np.arange(r)
-        rank_k = np.asarray(
-            sketch_qrcp_ranks(jnp.asarray(a), r, interpret=True)
-        )
-        np.testing.assert_array_equal(
-            np.argsort(rank_k, kind="stable"),
-            np.argsort(rank_xla, kind="stable"),
-        )
+    rng = np.random.default_rng(d + w)
+    a = rng.standard_normal((d, w)).astype(np.float32)
+    a = a * np.exp(rng.standard_normal(w)).astype(np.float32)
+    sel, ds = _sketch_qrcp(jnp.asarray(a), r)
+    sel, ds = np.asarray(sel), np.asarray(ds)
+    ref_sel, ref_ds = _greedy_qrcp_oracle(a, r)
+    assert len(set(sel.tolist())) == r
+    # Compare the prefix on which the oracle's argmax has a clear margin.
+    Bo = np.asarray(a, np.float64).copy()
+    selected = np.zeros(w, bool)
+    for s in range(r):
+        norms = np.where(selected, -np.inf, np.sum(Bo * Bo, axis=0))
+        top2 = np.sort(norms)[-2:]
+        if top2[1] - top2[0] < 1e-3 * top2[1]:
+            break
+        assert sel[s] == ref_sel[s], (s, sel[:s + 1], ref_sel[:s + 1])
+        np.testing.assert_allclose(ds[s], ref_ds[s], rtol=1e-3)
+        j = ref_sel[s]
+        q = Bo[:, j] / np.linalg.norm(Bo[:, j])
+        Bo -= np.outer(q, q @ Bo)
+        selected[j] = True
+    assert s >= min(r, 8) - 1, f"oracle margin vanished after {s} steps"
 
 
-def test_sketch_qrcp_kernel_zero_and_duplicate_columns():
-    from mixedprecisionblockqr_tpu.ops.pallas.sketch import (
-        sketch_qrcp_ranks,
-    )
+def test_sketch_qrcp_zero_and_duplicate_columns():
+    """A zero column is never an early pivot, and a duplicate of an
+    already-selected column has zero residual and is not re-picked while
+    live columns remain."""
+    from mixedprecisionblockqr_tpu.ops.pivoted import _sketch_qrcp
 
     rng = np.random.default_rng(1)
     a = rng.standard_normal((24, 256)).astype(np.float32)
     a[:, 10] = 0.0
+    a[:, 30] = 10.0 * a[:, 20]  # dominant: picked first
     a[:, 20] = a[:, 30]
-    rank = np.asarray(sketch_qrcp_ranks(jnp.asarray(a), 16, interpret=True))
-    sel = np.where(rank < 16)[0]
-    assert len(sel) == 16
-    assert 10 not in sel  # the zero column is never an early pivot
+    sel, ds = _sketch_qrcp(jnp.asarray(a), 16)
+    sel = np.asarray(sel)
+    assert len(set(sel.tolist())) == 16
+    assert 10 not in sel
+    assert sel[0] in (20, 30)
+    assert not ({20, 30} <= set(sel.tolist()))  # the twin is never re-picked
+    ref_sel, _ = _greedy_qrcp_oracle(a, 1)
+    assert ref_sel[0] in (20, 30)
 
 
 def test_pivoted_qr_jit_traceable_auto():

@@ -49,7 +49,7 @@ def test_tri_cholqr_panel():
 def test_tri_cholqr_refined_ill_conditioned():
     # cond(G) ~ 1e5-class square block (the driver's tail-panel regime):
     # the refinement pass must reach fp32-roundoff-class orthogonality,
-    # like CholeskyQR2 (calibrated in experiments/tri_ns_check.py).
+    # like CholeskyQR2.
     rng = np.random.default_rng(2)
     A = rng.standard_normal((2048, 2048))
     blk = np.linalg.qr(A, mode="r")[1920:, 1920:].astype(np.float32)

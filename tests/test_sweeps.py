@@ -11,7 +11,6 @@ import pytest
 from mixedprecisionblockqr_tpu.ops import metrics
 from mixedprecisionblockqr_tpu.ops.blockqr import block_qr
 from mixedprecisionblockqr_tpu.ops.householder import panel_factor
-from mixedprecisionblockqr_tpu.ops.pallas.gemm import tiled_matmul
 from mixedprecisionblockqr_tpu.ops.policy import POLICY_FP32, POLICY_MIXED
 from mixedprecisionblockqr_tpu.utils.datagen import size_sweep
 
@@ -43,36 +42,35 @@ def test_blockqr_offset_sweep():
 
 
 @pytest.mark.parametrize(
-    "adt,bdt,odt",
+    "in_dt,acc_dt,tol",
     [
-        (jnp.float32, jnp.float32, jnp.float32),
-        (jnp.bfloat16, jnp.bfloat16, jnp.float32),
-        (jnp.bfloat16, jnp.bfloat16, jnp.bfloat16),
-        (jnp.int8, jnp.int8, jnp.int32),
+        (jnp.float32, jnp.float32, 1e-6),
+        (jnp.bfloat16, jnp.float32, 0.0),
+        (jnp.float16, jnp.float32, 0.0),
+        (jnp.bfloat16, jnp.bfloat16, 2.0 ** -7),
+        (jnp.float16, jnp.float16, 2.0 ** -10),
     ],
 )
-def test_gemm_dtype_combo_sweep(adt, bdt, odt):
-    """Dtype-combo sweep mirroring the reference's TensorCore template
-    instantiations (fp16fp16fp32 / fp16^3 / u8s8i32)."""
+def test_policy_matmul_dtype_combo_sweep(in_dt, acc_dt, tol):
+    """Dtype-combo sweep of the policy GEMM (``ops/policy.py::matmul``, the
+    precision boundary every trailing/Q update goes through) mirroring the
+    reference's TensorCore template instantiations (fp16fp16fp32 / fp16^3):
+    the result equals the float64 product of the CAST operands to within
+    the accumulator's rounding."""
+    from mixedprecisionblockqr_tpu.ops.policy import matmul
+
     rng = np.random.default_rng(2)
-    if jnp.issubdtype(adt, jnp.integer):
-        a = rng.integers(-8, 8, (48, 32)).astype(np.int8)
-        b = rng.integers(-8, 8, (32, 16)).astype(np.int8)
-        tol = 0
-    else:
-        a = rng.random((48, 32)).astype(np.float32)
-        b = rng.random((32, 16)).astype(np.float32)
-        tol = 0.15 if odt == jnp.bfloat16 else 4e-2
-    c = tiled_matmul(
-        jnp.asarray(a).astype(adt), jnp.asarray(b).astype(bdt),
-        out_dtype=odt, bm=16, bn=16, bk=16, interpret=True,
-    )
-    ref = a.astype(np.float64) @ b.astype(np.float64)
-    got = np.asarray(c, np.float64)
-    if tol == 0:
-        np.testing.assert_array_equal(got, ref)
-    else:
-        assert np.max(np.abs(got - ref)) < tol * np.abs(ref).max()
+    a = rng.random((48, 32)).astype(np.float32)
+    b = rng.random((32, 16)).astype(np.float32)
+    c = matmul(jnp.asarray(a), jnp.asarray(b), in_dtype=in_dt,
+               accum_dtype=acc_dt)
+    assert c.dtype == jnp.dtype(acc_dt)
+    ac = np.asarray(jnp.asarray(a).astype(in_dt), np.float64)
+    bc = np.asarray(jnp.asarray(b).astype(in_dt), np.float64)
+    ref = ac @ bc
+    err = np.max(np.abs(np.asarray(c, np.float64) - ref)) / np.abs(ref).max()
+    # fp32 accumulation of 16-bit operands: exact products, fp32 sums.
+    assert err <= max(tol, 32 * 2.0 ** -24), err
 
 
 def test_size_sweep_generator():

@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from mixedprecisionblockqr_tpu.utils.timing import (
     device_peak_tflops,
@@ -29,6 +30,20 @@ def test_trace_scope_noop():
 
 
 def test_device_peak_lookup():
-    # On the CPU test backend this returns None; on TPU a float.
-    v = device_peak_tflops()
-    assert v is None or v > 0
+    # The CPU test backend has no data-sheet row: an error, not a default.
+    with pytest.raises(KeyError, match="no peak rates"):
+        device_peak_tflops()
+
+
+@pytest.mark.parametrize("dtype,rate", [
+    ("bfloat16", 989.0), ("float16", 989.0), ("tf32", 495.0),
+    ("float32", 67.0),
+])
+def test_device_peak_h100_rates(dtype, rate):
+    assert device_peak_tflops(dtype, kind="NVIDIA H100 80GB HBM3") == rate
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB"])
+def test_device_peak_unknown_kind_raises(kind):
+    with pytest.raises(KeyError, match=kind):
+        device_peak_tflops("bfloat16", kind=kind)
